@@ -1,4 +1,4 @@
-"""Batched-expert plant collection CLI: many MuJoCo envs, one vmapped TPU
+"""Batched-expert plant collection CLI: many MuJoCo envs, one vmapped device
 replan (learning/plant_batch.BatchedPlantCollector).
 
 The scale form of the reference's data generation
@@ -43,18 +43,19 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
     import numpy as np
 
     from iterative_learning_nmpc_tpu.learning.database import Database
+    from iterative_learning_nmpc_tpu.utils.compile_cache import (
+        setup_compile_cache,
+    )
     from iterative_learning_nmpc_tpu.learning.plant_batch import (
         BatchedPlantCollector,
     )
     from iterative_learning_nmpc_tpu.robots.go2 import go2_spec
     from iterative_learning_nmpc_tpu.robots.solo12 import solo12_spec
 
+    setup_compile_cache()
     spec = go2_spec() if args.robot == "go2" else solo12_spec()
     goals = [float(g) for g in args.goals.split(",")]
     E = args.n_envs

@@ -1,10 +1,10 @@
-"""Fully on-TPU LocoSafeDAgger CLI — the reference's iterative pipeline
+"""Fully on-device LocoSafeDAgger CLI — the reference's iterative pipeline
 (`DAgger/example/iter_locosafedagger.py`) with every data step running as B
 parallel combined-controller rollouts on device (one compiled rollout for
 all iterations; retrained weights enter as traced arguments).
 
     python examples/ondevice_dagger.py --policy ./policies/policy_bc_final.pkl \
-        --batch 64 --sim_time 4 --iters 2 --out ./dagger_tpu
+        --batch 64 --sim_time 4 --iters 2 --out ./dagger_out
 """
 import argparse
 import os
@@ -32,7 +32,7 @@ def main():
                     help="policy-only hysteresis delay (control steps)")
     ap.add_argument("--mpc_min_steps", type=int, default=2500,
                     help="expert latch length once engaged")
-    ap.add_argument("--out", default="./dagger_tpu")
+    ap.add_argument("--out", default="./dagger_out")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--randomize", action="store_true",

@@ -137,7 +137,7 @@ class SafeDaggerPipeline:
 
 
 class OnDeviceSafeDagger:
-    """Fully on-TPU LocoSafeDAgger outer loop (beyond-reference; semantics
+    """Fully on-device LocoSafeDAgger outer loop (beyond-reference; semantics
     mirror `SafeDaggerPipeline` / reference `iter_locosafedagger.py:16-112`
     with the single MuJoCo rollout replaced by `batch` parallel on-device
     combined-controller rollouts per data step —
@@ -267,7 +267,7 @@ class OnDeviceSafeDagger:
         n_steps = int(np.asarray(out.valid).sum())
         ratio = float(keep.sum() / max(n_steps, 1))
         self.expert_ratio_history.append(ratio)
-        print(f"[dagger-tpu] {tag}: expert-influence ratio {ratio:.3f} "
+        print(f"[dagger-device] {tag}: expert-influence ratio {ratio:.3f} "
               f"({int(keep.sum())}/{n_steps} valid steps, {B} envs)")
 
         db = Database(limit=cfg.database_size, goal_type="vc")
@@ -286,7 +286,7 @@ class OnDeviceSafeDagger:
         if len(db) == 0:
             # every env fell during the hysteresis delay and nothing was
             # relabeled — keep the previous dataset for the training step
-            print(f"[dagger-tpu] {tag}: no expert rows collected")
+            print(f"[dagger-device] {tag}: no expert rows collected")
             return prev_dataset
         agg_path = os.path.join(out_dir, "agg_dataset.hdf5")
         db.save_as_hdf5(agg_path, config=cfg)
@@ -297,7 +297,7 @@ class OnDeviceSafeDagger:
         db = Database(limit=cfg.database_size, goal_type="vc")
         db.load_saved_database(dataset_path)
         if len(db) < cfg.batch_size:
-            print(f"[dagger-tpu] {tag}: dataset too small ({len(db)}), "
+            print(f"[dagger-device] {tag}: dataset too small ({len(db)}), "
                   "skip training")
             return self.policy_path
         tc = TrainConfig(

@@ -18,7 +18,6 @@ import os
 import pickle
 from typing import Optional
 
-import h5py
 import numpy as np
 
 
@@ -194,6 +193,8 @@ class Database:
     # ------------------------------------------------------------------
     def save_as_hdf5(self, filename: str, config=None):
         os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+        import h5py
+
         order = self._order()
         with h5py.File(filename, "w") as hf:
             hf.create_dataset("states", data=self.states[order])
@@ -211,6 +212,8 @@ class Database:
         return filename
 
     def load_saved_database(self, filename: str):
+        import h5py
+
         with h5py.File(filename, "r") as hf:
             states = hf["states"][:]
             actions = hf["actions"][:]

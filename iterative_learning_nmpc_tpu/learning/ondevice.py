@@ -88,7 +88,7 @@ def make_batched_mpc_rollout(
     `delay_steps`, MPC latched >= `mpc_min_steps` once engaged) selects the
     applied torque, and every dataset row carries `is_expert` for the
     DAgger expert-row filter (`data_collection_locosafedagger.py:179-206`).
-    This makes the entire DAgger data step batched on TPU.
+    This makes the entire DAgger data step batched on the device.
     """
     gait, opt, cost = get_quadruped_config(gait_name, spec.name)
     solver = TrajOptSolver(spec, opt, cost)
@@ -161,15 +161,8 @@ def make_batched_mpc_rollout(
         pol_net, pol_vars, pol_norm = policy
         has_norm = pol_norm is not None
 
-        # NOTE on ops/policy_kernel.py (fused Pallas inference+PD): NOT
-        # used here, deliberately. Inside this rollout the policy runs
-        # per-env under jax.vmap — the env axis IS the matmul batch, and
-        # XLA batches the (B,47)x(47,512) chain onto the MXU exactly like
-        # the hand-written kernel (vmapping the pallas_call instead would
-        # shatter the batch into B single-row grid programs). The fused
-        # kernel's win is the BATCH-MAJOR serving path with VMEM-resident
-        # folded weights (solver/warmstart.py); measured comparison:
-        # scripts/bench_policy_kernel.py.
+        # The policy runs per env under jax.vmap: the env axis is the
+        # matmul batch, so XLA batches the (B,47)x(47,512) chain directly.
         def policy_tau(pstate, state44, q, v, v_des):
             pvars, nrm = pstate
             s = state44

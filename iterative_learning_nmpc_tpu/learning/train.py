@@ -1,4 +1,4 @@
-"""Behavior-cloning trainer: Flax MLP + optax Adam + L1 loss.
+"""Behavior-cloning trainer: JAX MLP + optax Adam + L1 loss.
 
 Replaces the torch loop of `Behavior_Cloning/examples/test_train_policy.py:83-264`
 and `DAgger/utils/train_locosafedagger.py:34-200`:
@@ -10,7 +10,7 @@ and `DAgger/utils/train_locosafedagger.py:34-200`:
 - warm start from a previous policy (`train_locosafedagger.py:163-167`).
 
 The epoch inner loop is one jitted `lax.scan` over pre-gathered device
-batches — the whole epoch runs on-device (TPU) with a single dispatch.
+batches — the whole epoch runs on-device with a single dispatch.
 """
 from __future__ import annotations
 

@@ -1,11 +1,11 @@
 """Structured quadruped rigid-body dynamics — the production compute path.
 
-TPU-first re-design of the generic tree recursion (models/tree_dynamics.py):
+Accelerator re-design of the generic tree recursion (models/tree_dynamics.py):
 the floating base is handled analytically in the Euler chart and the four
 legs — structurally identical 3-revolute chains — are evaluated with
 `jax.vmap` over the leg axis. Compared to the per-body unrolled tree this
-shrinks the XLA graph ~10x (the XLA-TPU backend chokes on scalar-soup
-graphs) and turns the leg math into vector code.
+shrinks the XLA graph ~10x (XLA builds scalar-soup graphs slowly) and
+turns the leg math into vector code.
 
 Replaces Pinocchio's FK/RNEA/Jacobian/CoM/centroidal kernels
 (`mpc_controller/utils/dynamics.py:48-163` in the reference) and matches

@@ -1,8 +1,8 @@
 """Generic kinematic-tree rigid-body dynamics (reference implementation).
 
 This is the arbitrary-tree version: correct for any RobotSpec but compiles to
-large scalar graphs (one unrolled block per body) that the XLA-TPU backend
-is slow to build. The production path is models/dynamics.py, which exploits
+large scalar graphs (one unrolled block per body) that XLA is slow to
+build. The production path is models/dynamics.py, which exploits
 the quadruped structure (analytic floating base + 4 identical legs vmapped).
 Kept as the structure-agnostic oracle for tests and future morphologies.
 
@@ -14,8 +14,8 @@ symbolic codegen (the CasADi role in the reference).
 
 Everything here takes single (q, v, ...) vectors; batch via `jax.vmap`.
 All loops are over a static body count (18) and unroll at trace time —
-XLA fuses them into straight-line vector code, which is the TPU-friendly shape
-for these tiny per-body ops. The batch dimension is where the parallelism is.
+XLA fuses them into straight-line vector code, which is the accelerator-
+friendly shape for these tiny per-body ops. The batch dimension is where the parallelism is.
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ Mirrors the reference's two-tier config system
 (`mpc_controller/config/config_abstract.py`, `config/quadruped/*.py`):
 GaitConfig / MPCOptConfig / MPCCostConfig with invariant checks, resolved by
 (robot, gait) factories. Solver-backend knobs that were acados/HPIPM-specific
-(hpipm_mode, use_cython, recompile) are replaced by the knobs of the TPU
+(hpipm_mode, use_cython, recompile) are replaced by the knobs of the JAX
 GN-SQP solver (penalty weights, line-search set, Levenberg regularization).
 """
 from __future__ import annotations
@@ -36,6 +36,29 @@ class GaitConfig:
             "phase_offset should be in [0,1]"
         assert len(self.stance_ratio) == self.n_eeff
         assert len(self.phase_offset) == self.n_eeff
+
+
+RICCATI_MODES = ("auto", "sequential", "triton", "associative")
+LINEARIZE_MODES = ("auto", "jacfwd")
+_REMOVED_MODES = {
+    ("riccati_mode", "pallas"): "the Mosaic Riccati kernel was removed; use "
+                                "'auto' (Triton kernel on GPU) or "
+                                "'sequential'",
+    ("linearize_mode", "dynjac"): "the Mosaic dynamics+Jacobian kernel was "
+                                  "removed; use 'auto' or 'jacfwd'",
+}
+
+
+def check_solver_modes(opt) -> None:
+    """Raise ValueError for an unknown or removed solver path name."""
+    for field, allowed in (("riccati_mode", RICCATI_MODES),
+                           ("linearize_mode", LINEARIZE_MODES)):
+        value = getattr(opt, field)
+        if (field, value) in _REMOVED_MODES:
+            raise ValueError(f"{field}={value!r}: "
+                             f"{_REMOVED_MODES[(field, value)]}")
+        if value not in allowed:
+            raise ValueError(f"{field}={value!r} not in {allowed}")
 
 
 @dataclass
@@ -73,7 +96,7 @@ class MPCOptConfig:
     # violation (cone / per-foot gravity share, torque / limit, patch / 10 cm
     # — solver/sqp.py _ineq_scales): 1e-2 means cone <= ~0.4 N on Go2
     qp_tol: float = 1.0e-2
-    # --- TPU solver knobs (replace hpipm_mode/use_cython/recompile) ---
+    # --- solver knobs (replace hpipm_mode/use_cython/recompile) ---
     # Levenberg-Marquardt regularization added to the input-Hessian blocks
     lm_reg: float = 1.0e-6
     # Parallel line-search candidates (evaluated simultaneously — ONE fused
@@ -89,20 +112,16 @@ class MPCOptConfig:
     ls_alphas: Tuple[float, ...] = (1.0, 0.5, 0.25, 0.1)
     ls_alphas_steady: Tuple[float, ...] = (1.0, 0.25)
     # Riccati backward sweep:
-    #   "auto"        -> "pallas" on TPU, "sequential" elsewhere
+    #   "auto"        -> "triton" on GPU, "sequential" elsewhere
     #   "sequential"  -> lax.scan of structured/generic steps (backward-stable)
-    #   "pallas"      -> fused whole-sweep TPU kernel for batched solves
-    #                    (ops/riccati_kernel.py; 2.6x the scan at B=256);
+    #   "triton"      -> batched solves run the sweep + alpha=1 rollout as one
+    #                    Pallas-Triton kernel launch (ops/riccati_triton.py);
     #                    unbatched solves keep the scan via custom_vmap
     #   "associative" -> parallel-in-time log-depth scan (long horizons,
     #                    ~1e-2 relative fp32 accuracy; exact in f64)
     riccati_mode: str = "auto"
-    # Stage linearization:
-    #   "auto"   -> "dynjac" on TPU, "jacfwd" elsewhere
-    #   "dynjac" -> fused Pallas dynamics+Jacobian kernel
-    #               (ops/dynjac_kernel.py; ~0.1 ms vs ~36 ms at B=256, N=25)
-    #   "jacfwd" -> 66 forward tangents through the residual stack
-    #   "jacrev" -> structure-exploiting assembly with reverse-mode core
+    # Stage linearization: "jacfwd" (66 forward tangents through the
+    # residual stack) is the only path; XLA fuses the tangent chain.
     linearize_mode: str = "auto"
     # Penalty weights for the constraint residuals (quadratic / AL)
     w_dyn: float = 1.0e3        # centroidal dynamics consistency (6,)
@@ -117,6 +136,7 @@ class MPCOptConfig:
     def __post_init__(self):
         assert len(self.opt_dt_scale) == 2
         assert self.mu > 0
+        check_solver_modes(self)
 
     def get_dt_nodes(self) -> float:
         return round(self.time_horizon / self.n_nodes, 4)

@@ -1,6 +1,6 @@
 """Closed-loop locomotion MPC controller.
 
-TPU re-design of the reference `LocomotionMPC` (`mpc_controller/mpc.py:19-694`):
+JAX re-design of the reference `LocomotionMPC` (`mpc_controller/mpc.py:19-694`):
 
 - The *entire* replan — warm-start shift, GN-SQP solve, Hermite interpolation
   to the control rate, ZOH inputs, and feed-forward RNEA torques along the

@@ -1,10 +1,10 @@
 """Multi-host launch helper (one process per host, jax.distributed).
 
 The reference's cluster story is hydra-submitit single-task SLURM stanzas
-(`bc_config.yaml:113-121`); the TPU-native equivalent is one process per
-host joined through `jax.distributed.initialize`, after which every code
-path in this framework (mesh solves, dp training, dataset all_gather) spans
-hosts over DCN transparently.
+(`bc_config.yaml:113-121`); the JAX equivalent is one process per host
+joined through `jax.distributed.initialize`, after which every code path in
+this framework (mesh solves, dp training, dataset all_gather) spans hosts
+transparently.
 
 Usage (per host, e.g. under SLURM/GKE):
 
@@ -13,8 +13,9 @@ Usage (per host, e.g. under SLURM/GKE):
         -- script.py [args...]
 
 or programmatically: `launch_distributed(main_fn)` reads the standard
-JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars
-(auto-detected on Cloud TPU pods where initialize() needs no arguments).
+JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars.
+The coordinator address, process count and id are always explicit: nothing
+on a plain GPU host tells JAX of a cluster.
 """
 from __future__ import annotations
 
@@ -44,12 +45,6 @@ def launch_distributed(
             num_processes=num_processes,
             process_id=process_id,
         )
-    elif coordinator is None and os.environ.get("TPU_WORKER_HOSTNAMES"):
-        # Cloud TPU pod: initialize() autodetects topology
-        try:
-            jax.distributed.initialize()
-        except Exception as e:  # single-host fallback
-            print(f"[launcher] distributed init skipped: {e}")
 
     if main_fn is not None:
         return main_fn()

@@ -1,9 +1,9 @@
 """Device-mesh parallelism for batched solves and policy training.
 
-The reference has no distributed compute (SURVEY.md §2.4); the TPU-native
-scaling story is:
+The reference has no distributed compute (SURVEY.md §2.4); the scaling
+story here is:
 - **dp**: thousands of perturbed NMPC instances / rollout seeds sharded over
-  the data axis of a `jax.sharding.Mesh` (ICI collectives inserted by XLA),
+  the data axis of a `jax.sharding.Mesh` (collectives inserted by XLA),
 - policy training data-parallel with replicated parameters and psum'd grads
   (explicit `shard_map` path provided for the collective-controlled variant),
 - dataset aggregation via `all_gather` on-device before host write-out
@@ -87,7 +87,7 @@ def make_batch_solver(solver, mesh: Mesh, n_iter: int, axis_name: str = "dp"):
 
 def make_train_step_dp(net, tx, mesh: Mesh, axis_name: str = "dp"):
     """Explicit-collective data-parallel BC train step via shard_map:
-    per-shard L1 grads, `psum` over ICI, replicated update."""
+    per-shard L1 grads, `psum` across devices, replicated update."""
     shard_map = _shard_map()
 
     def loss_fn(params, batch_stats, x, y):

@@ -1,6 +1,6 @@
 """Batched on-device soft-contact quadruped simulator (pure JAX).
 
-The TPU-side counterpart of the CPU MuJoCo plant (SURVEY.md §7.5): thousands
+The device-side counterpart of the CPU MuJoCo plant (SURVEY.md §7.5): thousands
 of rollouts per control step, vmapped/sharded over a device mesh. Used for
 large-scale policy evaluation and datagen augmentation; CPU MuJoCo remains
 the cross-check oracle (tests pin the two against each other on contact-free

@@ -121,10 +121,8 @@ def assemble_stage_jacobian(spec, w: Weights, x, u, cnt_k, peak_k, plane_k,
     """Assemble (Jx, Ju) from the dynamics core and its Jacobians.
 
     Jp/Jvf: (4, 3, NX); Jt_x: (n_tau, NX); Jt_a: (n_tau, 18);
-    Jt_f: (n_tau, 12) wrt f_eff (scaled by cnt below). Shared by the jacrev
-    path above and the fused Pallas kernel path (linearize_stages_dynjac).
-    lam_ineq_k shifts the hinge activity tests (AL duals — see
-    ocp.problem.stage_residual)."""
+    Jt_f: (n_tau, 12) wrt f_eff (scaled by cnt below). lam_ineq_k shifts
+    the hinge activity tests (AL duals — see ocp.problem.stage_residual)."""
     dtype = x.dtype
     f_eff = cnt_k[:, None] * split_input(u)[1]
     cnt12 = jnp.repeat(cnt_k, 3)
@@ -251,514 +249,3 @@ def linearize_stages_fast(spec, w: Weights, X, U, p: OCPParams,
     Jx, Ju = jax.vmap(jac_one)(X[:-1], U, cnt_n, peak_n, plane_n, loc_n,
                                patch_n, p.lam_ineq)
     return r, Jx, Ju
-
-
-def linearize_stages_dynjac(spec, w: Weights, Xb, Ub, pb: OCPParams,
-                            Jx_const, Ju_const, include_torque: bool = True,
-                            interpret: bool = False):
-    """Batched (r, Jx, Ju) via the fused Pallas dynamics+Jacobian kernel.
-
-    Xb (B, N+1, NX), Ub (B, N, NU), pb batched OCPParams -> leading (B, N)
-    outputs. One kernel launch evaluates every (problem, node) pair's
-    FK/RNEA core and exact Jacobian (ops/dynjac_kernel.py — measured ~0.1 ms
-    vs ~36 ms for the XLA jacfwd at B=256, N=25 on v5e); the residual rows
-    and Jacobian assembly reuse the same code as the per-node paths
-    (ocp.problem.stage_residual with core=, assemble_stage_jacobian).
-
-    d(tau)/d(f_eff) is the kinematic-duality block -(d v_foot / d v)^T,
-    taken from the kernel's v_feet Jacobian.
-    """
-    from ..ops.dynjac_kernel import dynjac_pallas
-    from ..ocp.problem import stage_residual
-
-    B, N = Ub.shape[0], Ub.shape[1]
-    X_nodes = Xb[:, :-1].reshape(B * N, NX)
-    A_nodes = Ub[..., :18].reshape(B * N, 18)
-    cnt_n = jnp.swapaxes(pb.cnt[:, :, :N], 1, 2)          # (B, N, 4)
-    f_n = Ub[..., 18:30].reshape(B, N, 4, 3)
-    fe_nodes = (cnt_n[..., None] * f_n).reshape(B * N, 12)
-
-    prim, J = dynjac_pallas(spec, X_nodes, A_nodes, fe_nodes,
-                            interpret=interpret)
-    p_feet = prim[:, :12].reshape(B, N, 4, 3)
-    v_feet = prim[:, 12:24].reshape(B, N, 4, 3)
-    tau = prim[:, 24:].reshape(B, N, 18)
-    Jp = J[:, :12, :NX].reshape(B, N, 4, 3, NX)
-    Jvf = J[:, 12:24, :NX].reshape(B, N, 4, 3, NX)
-    Jt_x = J[:, 24:, :NX].reshape(B, N, 18, NX)
-    Jt_a = J[:, 24:, NX:].reshape(B, N, 18, 18)
-    # duality: d tau / d f_eff_i = -(d v_foot_i / d v)^T
-    Jvf_v = Jvf[..., 18:NX]                                # (B, N, 4, 3, 18)
-    Jt_f = -jnp.swapaxes(Jvf_v, 3, 4)                      # (B, N, 4, 18, 3)
-    Jt_f = jnp.moveaxis(Jt_f, 2, 3).reshape(B, N, 18, 12)
-
-    n_tau = 18 if include_torque else 6
-    peak_n = jnp.swapaxes(pb.peak[:, :, :N], 1, 2)
-    plane_n = jnp.moveaxis(pb.plane_point[:, :, :N], 2, 1)  # (B, N, 4, 3)
-    loc_n = jnp.moveaxis(pb.cnt_loc[:, :, :N], 2, 1)
-    patch_n = jnp.swapaxes(pb.patch_radius[:, :, :N], 1, 2)
-
-    def res_one(x, u, cnt, peak, plane, loc, patch, lam, lami, rstr, bref,
-                jref, sh, core):
-        return stage_residual(
-            spec, w, x, u, cnt, peak, plane, loc, patch, rstr, bref, jref,
-            sh, lam_k=lam, lam_ineq_k=lami, include_torque=include_torque,
-            core=core)
-
-    def jac_one(x, u, cnt, peak, plane, loc, patch, lami, rstr, core_jac):
-        pf, tau_k, jp, jvf, jtx, jta, jtf = core_jac
-        return assemble_stage_jacobian(
-            spec, w, x, u, cnt, peak, plane, loc, patch, rstr,
-            pf, tau_k[:n_tau], jp, jvf, jtx[:n_tau], jta[:n_tau],
-            jtf[:n_tau], Jx_const, Ju_const, include_torque,
-            lam_ineq_k=lami)
-
-    res_nodes = jax.vmap(jax.vmap(
-        res_one, in_axes=(0, 0, 0, 0, 0, 0, 0, 0, 0, None, None, None, None,
-                          (0, 0, 0)),
-    ), in_axes=(0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, (0, 0, 0)))
-    r = res_nodes(
-        Xb[:, :-1], Ub, cnt_n, peak_n, plane_n, loc_n, patch_n, pb.lam_eq,
-        pb.lam_ineq, pb.restrict, pb.base_ref, pb.joint_ref, pb.step_height,
-        (p_feet, v_feet, tau),
-    )
-
-    jac_nodes = jax.vmap(jax.vmap(
-        jac_one, in_axes=(0, 0, 0, 0, 0, 0, 0, 0, None,
-                          (0, 0, 0, 0, 0, 0, 0)),
-    ), in_axes=(0, 0, 0, 0, 0, 0, 0, 0, 0, (0, 0, 0, 0, 0, 0, 0)))
-    Jx, Ju = jac_nodes(
-        Xb[:, :-1], Ub, cnt_n, peak_n, plane_n, loc_n, patch_n, pb.lam_ineq,
-        pb.restrict, (p_feet, tau, Jp, Jvf, Jt_x, Jt_a, Jt_f),
-    )
-    return r, Jx, Ju
-
-
-def total_cost_dyncore(spec, w: Weights, Xb, Ub, pb: OCPParams,
-                       interpret: bool = False):
-    """Merit/total cost via the fused primal dynamics kernel.
-
-    Xb (..., N+1, NX), Ub (..., N, NU), pb with matching leading dims ->
-    cost (...). All leading dims (line-search alphas, problem batch) are
-    flattened into the kernel's lane dimension, and the terminal node's FK
-    rides along as an extra node with zero inputs — one kernel launch per
-    merit evaluation (ops/dynjac_kernel.py dyncore_pallas). The residual
-    rows reuse ocp.problem.{stage_residual,terminal_residual} with core=,
-    so the merit stays bit-identical in layout to the XLA path.
-    """
-    from ..ops.dynjac_kernel import dyncore_pallas
-    from ..ocp.problem import stage_residual, terminal_residual
-
-    lead = Xb.shape[:-2]
-    L = 1
-    for d in lead:
-        L *= d
-    N = Ub.shape[-2]
-    Xf = Xb.reshape((L, N + 1, NX))
-    Uf = Ub.reshape((L, N, Ub.shape[-1]))
-    pf = jax.tree.map(lambda x: x.reshape((L,) + x.shape[len(lead):]), pb)
-
-    cnt_n = jnp.swapaxes(pf.cnt[:, :, :N], 1, 2)            # (L, N, 4)
-    f_n = Uf[..., 18:30].reshape(L, N, 4, 3)
-    fe = cnt_n[..., None] * f_n                              # (L, N, 4, 3)
-
-    zero_a = jnp.zeros((L, 1, 18), Xf.dtype)
-    zero_f = jnp.zeros((L, 1, 12), Xf.dtype)
-    X_all = Xf.reshape(L * (N + 1), NX)
-    A_all = jnp.concatenate([Uf[..., :18], zero_a], axis=1).reshape(-1, 18)
-    Fe_all = jnp.concatenate([fe.reshape(L, N, 12), zero_f],
-                             axis=1).reshape(-1, 12)
-    prim = dyncore_pallas(spec, X_all, A_all, Fe_all,
-                          interpret=interpret).reshape(L, N + 1, 42)
-    p_feet = prim[:, :N, :12].reshape(L, N, 4, 3)
-    v_feet = prim[:, :N, 12:24].reshape(L, N, 4, 3)
-    tau = prim[:, :N, 24:]
-    p_feet_T = prim[:, N, :12].reshape(L, 4, 3)
-
-    peak_n = jnp.swapaxes(pf.peak[:, :, :N], 1, 2)
-    plane_n = jnp.moveaxis(pf.plane_point[:, :, :N], 2, 1)
-    loc_n = jnp.moveaxis(pf.cnt_loc[:, :, :N], 2, 1)
-    patch_n = jnp.swapaxes(pf.patch_radius[:, :, :N], 1, 2)
-
-    def res_one(x, u, cnt, peak, plane, loc, patch, lam, lami, rstr, bref,
-                jref, sh, core):
-        return stage_residual(
-            spec, w, x, u, cnt, peak, plane, loc, patch, rstr, bref, jref,
-            sh, lam_k=lam, lam_ineq_k=lami, include_torque=True, core=core)
-
-    res_nodes = jax.vmap(jax.vmap(
-        res_one, in_axes=(0, 0, 0, 0, 0, 0, 0, 0, 0, None, None, None, None,
-                          (0, 0, 0)),
-    ), in_axes=(0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, (0, 0, 0)))
-    r = res_nodes(
-        Xf[:, :-1], Uf, cnt_n, peak_n, plane_n, loc_n, patch_n, pf.lam_eq,
-        pf.lam_ineq, pf.restrict, pf.base_ref, pf.joint_ref, pf.step_height,
-        (p_feet, v_feet, tau),
-    )
-
-    r_term = jax.vmap(
-        lambda x, peak, bref_e, jref, sh, pfT: terminal_residual(
-            spec, w, x, peak, bref_e, jref, sh, p_feet=pfT)
-    )(Xf[:, -1], pf.peak[:, :, -1], pf.base_ref_e, pf.joint_ref,
-      pf.step_height, p_feet_T)
-
-    cost = 0.5 * jnp.sum(r * r, axis=(1, 2)) + 0.5 * jnp.sum(
-        r_term * r_term, axis=1)
-    return cost.reshape(lead)
-
-
-def eq_residuals_dyncore(spec, w: Weights, Xb, Ub, pb: OCPParams,
-                         interpret: bool = False):
-    """Batched bare equality-penalty rows via the fused primal-dynamics
-    kernel: Xb (B, N+1, NX), Ub (B, N, NU) -> (B, N, 18). The XLA
-    per-(problem, node) RNEA/FK evaluation this replaces dominated the
-    steady-state RTI chain (measured +10.4 ms/step at B=512 on v5e — a 3x
-    throughput regression); one dyncore launch removes it. (The unused
-    inequality assembly of dual_g_dyncore is dead-code-eliminated.)"""
-    return dual_g_dyncore(spec, w, Xb, Ub, pb, interpret=interpret)[0]
-
-
-def ineq_g_dyncore(spec, w: Weights, Xb, Ub, pb: OCPParams,
-                   interpret: bool = False):
-    """Raw inequality constraint values for a batch of problems via the
-    fused primal-dynamics kernel: Xb (B, N+1, NX), Ub (B, N, NU) ->
-    (B, N, NC_INEQ). One dyncore launch evaluates the FK/RNEA core for all
-    (problem, node) pairs; the g assembly reuses ocp.problem.ineq_values
-    with core=, so the layout stays the single source of truth."""
-    return dual_g_dyncore(spec, w, Xb, Ub, pb, interpret=interpret)[1]
-
-
-def dual_g_dyncore(spec, w: Weights, Xb, Ub, pb: OCPParams,
-                   interpret: bool = False):
-    """BOTH AL dual-update inputs from ONE fused primal launch:
-    (r_eq (B, N, 18), g_ineq (B, N, NC_INEQ)). The equality rows and the
-    inequality violations are evaluated at the same iterate in the RTI
-    chain, so sharing the FK/RNEA kernel output halves the dual-update
-    launches per step."""
-    from ..ops.dynjac_kernel import dyncore_pallas
-    from ..ocp.problem import equality_residuals, ineq_values
-
-    B, N = Ub.shape[0], Ub.shape[1]
-    cnt_n = jnp.swapaxes(pb.cnt[:, :, :N], 1, 2)                # (B, N, 4)
-    f_n = Ub[..., 18:30].reshape(B, N, 4, 3)
-    fe = cnt_n[..., None] * f_n
-    prim = dyncore_pallas(
-        spec, Xb[:, :-1].reshape(B * N, NX),
-        Ub[..., :18].reshape(B * N, 18), fe.reshape(B * N, 12),
-        interpret=interpret,
-    ).reshape(B, N, 42)
-    p_feet = prim[:, :, :12].reshape(B, N, 4, 3)
-    v_feet = prim[:, :, 12:24].reshape(B, N, 4, 3)
-    tau = prim[:, :, 24:]
-    plane_n = jnp.moveaxis(pb.plane_point[:, :, :N], 2, 1)
-    loc_n = jnp.moveaxis(pb.cnt_loc[:, :, :N], 2, 1)
-    patch_n = jnp.swapaxes(pb.patch_radius[:, :, :N], 1, 2)
-
-    def one(x, u, cnt, plane, loc, patch, rstr, core):
-        pf, vf, tk = core
-        r_eq = equality_residuals(spec, w, x, u, cnt, plane,
-                                  core=(pf, vf, tk))
-        g = ineq_values(spec, w, x, u, cnt, loc, patch, rstr, core=(pf, tk))
-        return r_eq, g
-
-    fn = jax.vmap(jax.vmap(
-        one, in_axes=(0, 0, 0, 0, 0, 0, None, (0, 0, 0)),
-    ), in_axes=(0, 0, 0, 0, 0, 0, 0, (0, 0, 0)))
-    return fn(Xb[:, :-1], Ub, cnt_n, plane_n, loc_n, patch_n, pb.restrict,
-              (p_feet, v_feet, tau))
-
-
-def cost_dual_dyncore(spec, w: Weights, Xb, Ub, pb: OCPParams,
-                      interpret: bool = False):
-    """Merit cost AND both AL dual-update inputs from ONE fused primal
-    launch: (cost (...,), r_eq (..., N, 18), g_ineq (..., N, NC_INEQ)).
-
-    The RTI line search evaluates every candidate's merit cost, and the AL
-    dual update needs the equality rows + inequality violations of the
-    ACCEPTED candidate — all at iterates sharing one FK/RNEA core. Fusing
-    them removes the separate dual launch per step (the dyncore pass is
-    ~80% of each evaluation). All leading dims (line-search alphas x
-    problem batch) flatten into the kernel's lane dimension, and the
-    terminal node's FK rides along as an extra node with zero inputs,
-    exactly as in total_cost_dyncore."""
-    from ..ops.dynjac_kernel import dyncore_pallas
-    from ..ocp.problem import (equality_residuals, ineq_values,
-                               stage_residual, terminal_residual)
-
-    lead = Xb.shape[:-2]
-    B = 1
-    for d in lead:
-        B *= d
-    N = Ub.shape[-2]
-    Xb = Xb.reshape((B, N + 1, NX))
-    Ub = Ub.reshape((B, N, Ub.shape[-1]))
-    pb = jax.tree.map(lambda x: x.reshape((B,) + x.shape[len(lead):]), pb)
-    cnt_n = jnp.swapaxes(pb.cnt[:, :, :N], 1, 2)                # (B, N, 4)
-    f_n = Ub[..., 18:30].reshape(B, N, 4, 3)
-    fe = cnt_n[..., None] * f_n
-
-    zero_a = jnp.zeros((B, 1, 18), Xb.dtype)
-    zero_f = jnp.zeros((B, 1, 12), Xb.dtype)
-    A_all = jnp.concatenate([Ub[..., :18], zero_a], axis=1).reshape(-1, 18)
-    Fe_all = jnp.concatenate([fe.reshape(B, N, 12), zero_f],
-                             axis=1).reshape(-1, 12)
-    prim = dyncore_pallas(spec, Xb.reshape(B * (N + 1), NX), A_all, Fe_all,
-                          interpret=interpret).reshape(B, N + 1, 42)
-    p_feet = prim[:, :N, :12].reshape(B, N, 4, 3)
-    v_feet = prim[:, :N, 12:24].reshape(B, N, 4, 3)
-    tau = prim[:, :N, 24:]
-    p_feet_T = prim[:, N, :12].reshape(B, 4, 3)
-
-    peak_n = jnp.swapaxes(pb.peak[:, :, :N], 1, 2)
-    plane_n = jnp.moveaxis(pb.plane_point[:, :, :N], 2, 1)
-    loc_n = jnp.moveaxis(pb.cnt_loc[:, :, :N], 2, 1)
-    patch_n = jnp.swapaxes(pb.patch_radius[:, :, :N], 1, 2)
-
-    def one(x, u, cnt, peak, plane, loc, patch, lam, lami, rstr, bref,
-            jref, sh, core):
-        pf, vf, tk = core
-        r = stage_residual(
-            spec, w, x, u, cnt, peak, plane, loc, patch, rstr, bref, jref,
-            sh, lam_k=lam, lam_ineq_k=lami, include_torque=True, core=core)
-        r_eq = equality_residuals(spec, w, x, u, cnt, plane,
-                                  core=(pf, vf, tk))
-        g = ineq_values(spec, w, x, u, cnt, loc, patch, rstr, core=(pf, tk))
-        return r, r_eq, g
-
-    fn = jax.vmap(jax.vmap(
-        one, in_axes=(0, 0, 0, 0, 0, 0, 0, 0, 0, None, None, None, None,
-                      (0, 0, 0)),
-    ), in_axes=(0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, (0, 0, 0)))
-    r, r_eq, g = fn(
-        Xb[:, :-1], Ub, cnt_n, peak_n, plane_n, loc_n, patch_n, pb.lam_eq,
-        pb.lam_ineq, pb.restrict, pb.base_ref, pb.joint_ref, pb.step_height,
-        (p_feet, v_feet, tau),
-    )
-    r_term = jax.vmap(
-        lambda x, peak, bref_e, jref, sh, pfT: terminal_residual(
-            spec, w, x, peak, bref_e, jref, sh, p_feet=pfT)
-    )(Xb[:, -1], pb.peak[:, :, -1], pb.base_ref_e, pb.joint_ref,
-      pb.step_height, p_feet_T)
-    cost = 0.5 * jnp.sum(r * r, axis=(1, 2)) + 0.5 * jnp.sum(
-        r_term * r_term, axis=1)
-    return (cost.reshape(lead), r_eq.reshape(lead + r_eq.shape[1:]),
-            g.reshape(lead + g.shape[1:]))
-
-
-def lingram_structured(spec, w: Weights, Xb, Ub, pb: OCPParams,
-                       include_torque: bool = True,
-                       interpret: bool = False):
-    """Gram blocks (Q, R, M, qx, ru) computed DIRECTLY from row structure.
-
-    The Gram G = J^T J has no cross-row terms — each residual row
-    contributes its own outer product — so it decomposes exactly by row
-    group, and the full 130-row J never needs to exist:
-
-    - tracking / acc / force rows are diagonal        -> elementwise adds,
-    - foot-kinematic rows touch x columns only        -> ONE batched matmul
-      on a (B*N, 32, 37) stack (rows | residual col),
-    - dynamics + torque rows are the only rows with
-      both x and u columns (so M comes only from them)-> ONE batched matmul
-      on (B*N, 6|18, 67),
-    - cone rows are block-diagonal per foot on f      -> ONE batched matmul
-      on (B*N*4, 5, 4) + static block placement.
-
-    This replaces lingram_stages_dynjac's materialize-J path whose vmapped
-    per-node assembly compiled to dozens of small layout-churn copies
-    (measured 14 ms -> see scripts/profile_lin.py; the J arrays also pad
-    36/30/67 trailing dims to 128 lanes in HBM). Everything here runs on
-    flat (B*N, ...) arrays. Validated against the jacfwd-path Gram in
-    tests/test_fast_linearize.py::test_structured_gram_matches_oracle.
-    """
-    import numpy as np
-    from ..ops.dynjac_kernel import dynjac_pallas
-
-    B, N = Ub.shape[0], Ub.shape[1]
-    BN = B * N
-    dtype = Xb.dtype
-
-    # ---- fused dynamics + Jacobian core (one kernel launch) ----
-    X_nodes = Xb[:, :-1].reshape(BN, NX)
-    U_nodes = Ub.reshape(BN, NU)
-    A_nodes = U_nodes[:, :18]
-    cnt = jnp.swapaxes(pb.cnt[:, :, :N], 1, 2).reshape(BN, N_FOOT)
-    f = U_nodes[:, 18:].reshape(BN, N_FOOT, 3)
-    f_eff = cnt[..., None] * f
-    prim, J = dynjac_pallas(spec, X_nodes, A_nodes, f_eff.reshape(BN, 12),
-                            interpret=interpret)
-    p_feet = prim[:, :12].reshape(BN, N_FOOT, 3)
-    v_feet = prim[:, 12:24].reshape(BN, N_FOOT, 3)
-    tau = prim[:, 24:]                                   # (BN, 18)
-    Jp = J[:, :12, :NX].reshape(BN, N_FOOT, 3, NX)
-    Jvf = J[:, 12:24, :NX].reshape(BN, N_FOOT, 3, NX)
-    Jt_x = J[:, 24:, :NX]                                # (BN, 18, NX)
-    Jt_a = J[:, 24:, NX:]                                # (BN, 18, 18)
-    # duality: d tau / d f_eff_i = -(d v_foot_i / d v)^T
-    Jt_f = -jnp.swapaxes(Jvf[..., 18:NX], 2, 3)          # (BN, 4, 18, 3)
-    Jt_f = jnp.moveaxis(Jt_f, 1, 2).reshape(BN, 18, 12)
-
-    # ---- broadcast per-problem params to flat nodes ----
-    rep = lambda x: jnp.broadcast_to(
-        x[:, None], (B, N) + x.shape[1:]).reshape((BN,) + x.shape[1:])
-    peak = jnp.swapaxes(pb.peak[:, :, :N], 1, 2).reshape(BN, N_FOOT)
-    plane = jnp.moveaxis(pb.plane_point[:, :, :N], 2, 1).reshape(BN, N_FOOT, 3)
-    loc = jnp.moveaxis(pb.cnt_loc[:, :, :N], 2, 1).reshape(BN, N_FOOT, 3)
-    patch = jnp.swapaxes(pb.patch_radius[:, :, :N], 1, 2).reshape(BN, N_FOOT)
-    restrict = rep(pb.restrict)                          # (BN,)
-    base_ref = rep(pb.base_ref)
-    joint_ref = rep(pb.joint_ref)
-    step_h = rep(pb.step_height)
-    lam = pb.lam_eq.reshape(BN, 18)
-    lami = pb.lam_ineq.reshape(BN, 36)
-    s_cone = cnt[..., None] * lami[:, :20].reshape(BN, N_FOOT, 5)
-    s_tau = lami[:, 20:32]
-    s_patch = lami[:, 32:36]
-    cnt12 = jnp.repeat(cnt, 3, axis=1)                   # (BN, 12)
-
-    # ---- diagonal groups (tracking / acc / force regs) ----
-    # per-x-column sqrt weights: cols 0-5 base pos, 6-17 joint pos,
-    # 18-23 base vel, 24-35 joint vel (ocp.problem._base_joint_residuals)
-    wb = np.asarray(w.base)
-    wj = np.asarray(w.joint)
-    wT = np.concatenate([wb[:6], wj[:12], wb[6:], wj[12:]]).astype(
-        np.dtype(jnp.dtype(dtype).name))
-    Q_const = np.diag(wT * wT)
-    x_ref = jnp.concatenate(
-        [base_ref[:, :6], joint_ref, base_ref[:, 6:],
-         jnp.zeros((BN, 12), dtype)], axis=1)            # (BN, 36)
-    qx = (wT * wT) * (X_nodes - x_ref)                   # (BN, 36)
-
-    wacc = np.asarray(w.acc)
-    Rdiag_const = np.zeros(NU, np.dtype(jnp.dtype(dtype).name))
-    Rdiag_const[6:18] = wacc * wacc
-    ru = jnp.zeros((BN, NU), dtype)
-    ru = ru.at[:, 6:18].set((wacc * wacc) * A_nodes[:, 6:])
-    # rf: r = w_f*(f_eff - f_ref), d/df = cnt*w_f; rf_zero: r=(1-cnt)f
-    wf2 = jnp.asarray(w.f_reg)[None] ** 2                # (1, 4, 3)
-    n_active = jnp.maximum(jnp.sum(cnt, axis=1), 1.0)
-    f_ref = jnp.zeros_like(f_eff).at[:, :, 2].set(
-        cnt * w.total_weight / n_active[:, None])
-    omc = (1.0 - cnt)[..., None]
-    Rdiag_f = (cnt[..., None] ** 2) * wf2 + omc * omc    # (BN, 4, 3)
-    ru_f = (cnt[..., None] * wf2 * (f_eff - f_ref) + omc * omc * f)
-    ru = ru.at[:, 18:].set(ru_f.reshape(BN, 12))
-
-    # ---- foot-kinematic stack S (x cols only) + residual column ----
-    sc_sw = (peak * jnp.asarray(w.swing))[..., None]                 # (BN,4,1)
-    S_sw = sc_sw * Jp[:, :, 2, :]
-    s_sw = sc_sw[..., 0] * (p_feet[:, :, 2] - step_h[:, None])
-
-    sc_d = (restrict[:, None] * cnt * w.foot_disp)[..., None, None]
-    S_d = (sc_d * Jp[:, :, :2, :]).reshape(BN, 8, NX)
-    s_d = (sc_d[..., 0] * (p_feet[:, :, :2] - loc[:, :, :2])).reshape(BN, 8)
-
-    d_xy = p_feet[:, :, :2] - loc[:, :, :2]
-    dist = jnp.sqrt(jnp.sum(d_xy * d_xy, axis=2) + 1.0e-12)
-    unit = d_xy / dist[..., None]
-    gap_p = dist - patch
-    p_act = hinge_shifted_act(gap_p, s_patch)
-    sc_p = restrict[:, None] * cnt * w.patch
-    S_p = (sc_p * p_act)[..., None] * jnp.einsum(
-        "bij,bijx->bix", unit, Jp[:, :, :2, :])
-    s_p = sc_p * hinge_shifted(gap_p, s_patch)
-
-    stab = jnp.asarray(w.stab_gain)
-    S_c = Jvf.at[:, :, 2, :].add(stab[None, :, None] * Jp[:, :, 2, :])
-    S_c = ((cnt * w.contact_vel)[..., None, None] * S_c).reshape(BN, 12, NX)
-    pin = jnp.concatenate(
-        [v_feet[:, :, :2],
-         (v_feet[:, :, 2] + stab[None] * (p_feet[:, :, 2] - plane[:, :, 2])
-          )[..., None]], axis=2)
-    s_c = ((cnt[..., None] * pin).reshape(BN, 12) * w.contact_vel
-           + cnt12 * lam[:, 6:])
-
-    c_act = (plane[:, :, 2] - p_feet[:, :, 2] > 0.0).astype(dtype)
-    S_cl = (-(1.0 - cnt) * w.swing_clear * c_act)[..., None] * Jp[:, :, 2, :]
-    s_cl = (1.0 - cnt) * w.swing_clear * jnp.maximum(
-        plane[:, :, 2] - p_feet[:, :, 2], 0.0)
-
-    S = jnp.concatenate([S_sw, S_d, S_p, S_c, S_cl], axis=1)   # (BN, 32, NX)
-    s = jnp.concatenate([s_sw, s_d, s_p, s_c, s_cl], axis=1)   # (BN, 32)
-    Sa = jnp.concatenate([S, s[..., None]], axis=2)            # (BN, 32, 37)
-    dg = lambda a, b: jax.lax.dot_general(a, b, (((1,), (1,)), ((0,), (0,))))
-    G_S = dg(Sa, Sa)                                           # (BN, 37, 37)
-
-    # ---- dynamics (+ torque hinge) rows: the only x-AND-u rows ----
-    D_x = w.dyn_cons * Jt_x[:, :6]
-    D_u = w.dyn_cons * jnp.concatenate(
-        [Jt_a[:, :6], Jt_f[:, :6] * cnt12[:, None, :]], axis=2)
-    d_res = w.dyn_cons * tau[:, :6] + lam[:, :6]
-    if include_torque:
-        tau_j = tau[:, 6:]
-        gap_t = jnp.abs(tau_j) - jnp.asarray(spec.torque_limit)
-        t_act = hinge_shifted_act(gap_t, s_tau)
-        t_sc = (t_act * jnp.sign(tau_j) * w.torque)[..., None]
-        D_x = jnp.concatenate([D_x, t_sc * Jt_x[:, 6:]], axis=1)
-        D_u = jnp.concatenate(
-            [D_u, t_sc * jnp.concatenate(
-                [Jt_a[:, 6:], Jt_f[:, 6:] * cnt12[:, None, :]], axis=2)],
-            axis=1)
-        t_res = w.torque * hinge_shifted(gap_t, s_tau)
-        d_res = jnp.concatenate([d_res, t_res], axis=1)
-    Da = jnp.concatenate([D_x, D_u, d_res[..., None]], axis=2)  # (BN,nd,67)
-    G_D = dg(Da, Da)                                            # (BN, 67, 67)
-
-    # ---- cone rows: per-foot (5 x 3) blocks on the f columns ----
-    g_vals = cone_values(f_eff, w.mu)                           # (BN, 4, 5)
-    acts = hinge_shifted_act(g_vals, s_cone)
-    g_xy = jnp.asarray(_CONE_XY, dtype)
-    mu_mask = jnp.asarray(_CONE_MU_MASK, dtype)
-    g_z = jnp.asarray(_CONE_Z, dtype) * (mu_mask * w.mu + (1.0 - mu_mask))
-    grad = jnp.concatenate(
-        [jnp.broadcast_to(g_xy[None, None], (BN, N_FOOT, 5, 2)),
-         jnp.broadcast_to(g_z[None, None, :, None], (BN, N_FOOT, 5, 1))],
-        axis=3)
-    grad = grad * (acts * (w.cone * cnt)[..., None])[..., None]  # (BN,4,5,3)
-    c_res = w.cone * hinge_shifted(g_vals, s_cone)               # (BN, 4, 5)
-    Ca = jnp.concatenate([grad, c_res[..., None]], axis=3)       # (BN,4,5,4)
-    Cf = Ca.reshape(BN * N_FOOT, 5, 4)
-    G_C = dg(Cf, Cf).reshape(BN, N_FOOT, 4, 4)
-
-    # ---- assemble ----
-    Q = G_S[:, :NX, :NX] + G_D[:, :NX, :NX] + jnp.asarray(Q_const)[None]
-    qx = qx + G_S[:, :NX, NX] + G_D[:, :NX, NX + NU]
-    M = G_D[:, :NX, NX:NX + NU]
-    R = G_D[:, NX:NX + NU, NX:NX + NU] + jnp.asarray(
-        np.diag(Rdiag_const))[None]
-    didx = jnp.arange(18, NU)
-    R = R.at[:, didx, didx].add(Rdiag_f.reshape(BN, 12))
-    for i in range(N_FOOT):
-        sl = slice(18 + 3 * i, 21 + 3 * i)
-        R = R.at[:, sl, sl].add(G_C[:, i, :3, :3])
-        ru = ru.at[:, sl].add(G_C[:, i, :3, 3])
-    ru = ru + G_D[:, NX:NX + NU, NX + NU]
-
-    rs = lambda x: x.reshape((B, N) + x.shape[1:])
-    return rs(Q), rs(R), rs(M), rs(qx), rs(ru)
-
-
-def lingram_stages_dynjac(spec, w: Weights, Xb, Ub, pb: OCPParams,
-                          Jx_const, Ju_const, include_torque: bool = True,
-                          interpret: bool = False):
-    """Batched linearization + Gram condensation in one explicit layout.
-
-    Returns (Q, R, M, qx, ru) with leading (B, N). The contraction
-    G = J^T J on J = [Jx | Ju | r] runs as ONE flat (B*N)-batched
-    dot_general on explicitly-shaped arrays: the same einsum written
-    per-sample under vmap compiles to a transpose-heavy program (~8 ms at
-    B=256 vs ~0.4 ms for this layout). The optimization barrier keeps XLA
-    from re-running the Jacobian assembly per Gram slice.
-    """
-    r, Jx, Ju = linearize_stages_dynjac(
-        spec, w, Xb, Ub, pb, Jx_const, Ju_const,
-        include_torque=include_torque, interpret=interpret)
-    r, Jx, Ju = jax.lax.optimization_barrier((r, Jx, Ju))
-    B, N, R_rows = r.shape
-    nu = Ju.shape[-1]
-    J = jnp.concatenate([Jx, Ju, r[..., None]], axis=-1)
-    J = J.reshape(B * N, R_rows, NX + nu + 1)
-    G = jax.lax.dot_general(J, J, (((1,), (1,)), ((0,), (0,))))
-    G = G.reshape(B, N, NX + nu + 1, NX + nu + 1)
-    return (G[..., :NX, :NX], G[..., NX:NX + nu, NX:NX + nu],
-            G[..., :NX, NX:NX + nu], G[..., :NX, NX + nu],
-            G[..., NX:NX + nu, NX + nu])

@@ -3,7 +3,7 @@ learned-policy variants.
 
 The BASELINE.json north star asks for "learned-policy warm-starts [to] feed
 back into the solver to cut iterations". Two rounds of measurement
-(BENCH_WARMSTART.json, tests/test_policy_warmstart.py) landed on a sharper
+(scripts/bench_warmstart.py, tests/test_policy_warmstart.py) landed on a sharper
 statement of where the win actually is:
 
 - The engineered stationary `TrajOptSolver.cold_start` is already a
@@ -17,8 +17,7 @@ statement of where the win actually is:
   `mpc.controller.LocomotionMPC` (phase_aligned_boot=True).
 
 Fully on device and jit/vmap-friendly: `apply_fn` is any (47,) -> (12,)
-policy (e.g. the fused Pallas kernel from ops/policy_kernel.py or a Flax
-apply).
+policy (e.g. `learning.network.make_policy_apply`).
 """
 from __future__ import annotations
 
@@ -66,7 +65,7 @@ def policy_warmstart(
     drifts out of distribution and NaNs the solve. The plant rollout costs
     ~N policy inferences + N*40 sim steps (one fused scan on device) and
     turns the warm start into a real iteration cut (see
-    tests/test_policy_warmstart.py and BENCH_WARMSTART.json).
+    tests/test_policy_warmstart.py).
     """
     from ..sim import jax_sim
 
@@ -136,7 +135,8 @@ def merit_phase_boot(
     a post-divergence recovery state. A 3-iteration probe ranks the TRUE
     best offset on every tested state (see the module bench,
     scripts/bench_warmstart.py), and the probe is one vmapped device call —
-    on the batch-parallel TPU solver, C=12 extra problems cost ~one solve.
+    on the batch-parallel solver, C=12 extra problems cost ~one batched
+    solve.
 
     Returns (params', offset, probe_costs) where params' carries the
     selected cnt/peak windows; the caller aligns its node clock with

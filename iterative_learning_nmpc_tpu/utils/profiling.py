@@ -1,8 +1,8 @@
 """Timing instrumentation (reference `mpc_controller/utils/profiling.py:6-32`).
 
 Same decorator shape as the reference; `print_timings` reports mean/std/max
-excluding the first call and the first call separately — on TPU the first
-call is the XLA compile, exactly the role codegen/compile played for acados.
+excluding the first call and the first call separately — on the device the
+first call is the XLA compile, exactly the role codegen/compile played for acados.
 """
 from __future__ import annotations
 

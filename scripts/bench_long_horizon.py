@@ -1,14 +1,15 @@
-"""Long-horizon Riccati-mode comparison (VERDICT r2 item 7).
+"""Long-horizon Riccati-mode comparison.
 
-Times one full RTI step (linearize + sweep + rollout + AL epilogue) at
-N=25 and N=100 for the three sweep implementations:
+Times one full batched RTI step (linearize + sweep + rollout + AL epilogue)
+at N=25 and N=100 for the sweep implementations:
 
-  - pallas      (fused whole-sweep kernel, N-parameterized)
+  - triton      (fused sweep + rollout kernel; GPU only)
   - sequential  (lax.scan XLA sweep)
   - associative (log-depth parallel-in-time scan)
 
-Run on the real TPU:   python scripts/bench_long_horizon.py --batch 256
-Results are recorded in solver/parallel_riccati.py's docstring.
+Run on a GPU host:   python scripts/bench_long_horizon.py --batch 256
+(--cpu runs the XLA modes on the host CPU for a rehearsal). Writes
+BENCH_HORIZON.json with the device it ran on.
 """
 import argparse
 import os
@@ -23,7 +24,7 @@ def main():
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--horizons", type=int, nargs="+", default=[25, 100])
     ap.add_argument("--modes", nargs="+",
-                    default=["pallas", "sequential", "associative"])
+                    default=["triton", "sequential", "associative"])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
@@ -32,12 +33,12 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".jax_cache"))
+    from iterative_learning_nmpc_tpu.utils.compile_cache import (
+        setup_compile_cache,
+    )
 
-    import jax.numpy as jnp
+    setup_compile_cache()
+
     import numpy as np
 
     from iterative_learning_nmpc_tpu.gait.planner import ContactPlanner
@@ -72,8 +73,6 @@ def main():
 
             o = copy.deepcopy(opt)
             o.riccati_mode = mode
-            if mode != "pallas":
-                o.linearize_mode = "jacfwd" if args.cpu else "auto"
             try:
                 solver = TrajOptSolver(spec, o, cost)
             except Exception as e:
@@ -93,8 +92,7 @@ def main():
             step = jax.jit(jax.vmap(lambda x, u, p: solver.solve(x, u, p, 1).U))
             try:
                 t0 = time.perf_counter()
-                out = step(Xb, Ub, pb)
-                _ = float(jnp.sum(out[:, 0, 0]))
+                jax.block_until_ready(step(Xb, Ub, pb))
                 compile_s = time.perf_counter() - t0
             except Exception as e:
                 rows[mode] = f"compile failed: {type(e).__name__}: {e}"[:200]
@@ -104,7 +102,7 @@ def main():
                 t0 = time.perf_counter()
                 for _ in range(args.reps):
                     out = step(Xb, Ub, pb)
-                _ = float(jnp.sum(out[:, 0, 0]))
+                jax.block_until_ready(out)
                 times.append((time.perf_counter() - t0) / args.reps)
             ms = float(np.median(times)) * 1e3
             rows[mode] = (f"{ms:8.1f} ms/step  ({B / (ms / 1e3):7.0f} "
@@ -122,8 +120,7 @@ def main():
 
     import json
 
-    record["what"] = ("batched 1-RTI-step wall per Riccati mode "
-                      "(VERDICT r3 item 6)")
+    record["what"] = "batched 1-RTI-step wall per Riccati mode"
     record["batch"] = B
     record["device"] = str(jax.devices()[0].device_kind)
     record["date"] = time.strftime("%Y-%m-%d")

@@ -37,8 +37,11 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
+    from iterative_learning_nmpc_tpu.utils.compile_cache import (  # noqa: E402
+        setup_compile_cache,
+    )
+
+    setup_compile_cache()
     import numpy as np
 
     from iterative_learning_nmpc_tpu.learning.database import Database

@@ -41,7 +41,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--skip_eval", action="store_true",
                     help="train only (evaluate later via --policy, e.g. in a "
-                         "separate CPU process while the TPU trains on)")
+                         "separate CPU process while the device trains on)")
     ap.add_argument("--init_policy", default=None,
                     help="override initial policy path (default: bc_dir BC)")
     ap.add_argument("--init_dataset", default=None,
@@ -55,9 +55,11 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
+    from iterative_learning_nmpc_tpu.utils.compile_cache import (  # noqa: E402
+        setup_compile_cache,
+    )
+
+    setup_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np

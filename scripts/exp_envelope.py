@@ -58,9 +58,11 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
+    from iterative_learning_nmpc_tpu.utils.compile_cache import (  # noqa: E402
+        setup_compile_cache,
+    )
+
+    setup_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np

@@ -20,7 +20,7 @@ Protocol here (reference values, upgrades noted):
   checkpoint-survival protocol, `DAgger/test/test_policy_rollout.py:41-55`).
 
 Everything is subprocess-per-stage so collects parallelize on CPU cores
-and a retrain can target the TPU without the orchestrator importing JAX.
+and a retrain can target the GPU without the orchestrator importing JAX.
 
     python scripts/exp_inplant_dagger.py drive --out /root/repo/.expr/dagger5
 
@@ -53,8 +53,11 @@ def _cpu_jax():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
+    from iterative_learning_nmpc_tpu.utils.compile_cache import (  # noqa: E402
+        setup_compile_cache,
+    )
+
+    setup_compile_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +130,11 @@ def cmd_train(args):
     else:
         import jax
 
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(REPO, ".jax_cache"))
+        from iterative_learning_nmpc_tpu.utils.compile_cache import (  # noqa: E402
+            setup_compile_cache,
+        )
+
+        setup_compile_cache()
     import numpy as np
 
     from iterative_learning_nmpc_tpu.learning.database import Database
@@ -401,7 +407,7 @@ def main():
     t.add_argument("--epochs", type=int, default=15)
     t.add_argument("--lr", type=float, default=1.0e-3)
     t.add_argument("--batch_size", type=int, default=256)
-    t.add_argument("--device", default="cpu", choices=("cpu", "tpu"))
+    t.add_argument("--device", default="cpu", choices=("cpu", "gpu"))
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--traj_base", type=int, default=1000)
     t.add_argument("--balance_goals", action="store_true")
@@ -431,7 +437,7 @@ def main():
     d.add_argument("--epochs", type=int, default=15)
     d.add_argument("--lr", type=float, default=1.0e-3)
     d.add_argument("--batch_size", type=int, default=256)
-    d.add_argument("--train_device", default="cpu", choices=("cpu", "tpu"))
+    d.add_argument("--train_device", default="cpu", choices=("cpu", "gpu"))
     d.add_argument("--eval_secs", type=float, default=5.0)
     d.add_argument("--screen_starts", type=int, default=1)
     d.add_argument("--balance_goals", action="store_true")

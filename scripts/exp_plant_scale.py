@@ -44,8 +44,11 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
+    from iterative_learning_nmpc_tpu.utils.compile_cache import (  # noqa: E402
+        setup_compile_cache,
+    )
+
+    setup_compile_cache()
     import numpy as np
 
     from iterative_learning_nmpc_tpu.learning.plant_batch import (
@@ -88,7 +91,7 @@ def main():
                "--save_dir", os.path.join(args.out, "policies"),
                "--run_name", tag, "--epochs", str(args.epochs),
                "--lr", str(args.lr), "--batch_size", str(args.batch_size),
-               "--device", "tpu", "--seed", str(args.seed),
+               "--device", "cpu", "--seed", str(args.seed),
                "--balance_goals",
                "--inplant_weight", str(args.inplant_weight),
                "--base_rows", str(base_rows),

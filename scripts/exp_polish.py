@@ -7,7 +7,7 @@ per-goal transfer is near-threshold and tips with each retrain, so the
 search is over iterates, not a single final.
 
 Screens run as CPU SUBPROCESSES (scripts/screen_checkpoints.py) overlapped
-with the next TPU collect+train — the TPU never waits on MuJoCo.
+with the next device collect+train — the device never waits on MuJoCo.
 
     python scripts/exp_polish.py --init_policy ... --init_dataset ... \
         --out .expr/polish --rounds 14 --wide
@@ -43,9 +43,11 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
+    from iterative_learning_nmpc_tpu.utils.compile_cache import (  # noqa: E402
+        setup_compile_cache,
+    )
+
+    setup_compile_cache()
 
     from iterative_learning_nmpc_tpu.learning.dagger import (
         OnDeviceSafeDagger,

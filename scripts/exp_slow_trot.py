@@ -16,10 +16,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"))
+from iterative_learning_nmpc_tpu.utils.compile_cache import (  # noqa: E402
+    setup_compile_cache,
+)
+
+setup_compile_cache()
 
 import numpy as np
 

@@ -19,15 +19,13 @@ def main():
     totals = collections.Counter()
     counts = collections.Counter()
     for plane in data.planes:
-        if "TPU" not in plane.name and "Device" not in plane.name:
+        # device planes: "/device:GPU:0" (kernels on the card's streams)
+        if not plane.name.startswith("/device:GPU"):
             continue
         for line in plane.lines:
-            if "XLA Op" in line.name or "Ops" in line.name or True:
-                for ev in line.events:
-                    name = ev.name
-                    dur = ev.duration_ns
-                    totals[(plane.name, line.name, name)] += dur
-                    counts[(plane.name, line.name, name)] += 1
+            for ev in line.events:
+                totals[(plane.name, line.name, ev.name)] += ev.duration_ns
+                counts[(plane.name, line.name, ev.name)] += 1
     # aggregate per op name within device planes, skipping module-level lines
     agg = collections.Counter()
     aggc = collections.Counter()

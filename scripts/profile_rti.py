@@ -1,9 +1,11 @@
-"""Ad-hoc stage breakdown of one batched RTI iteration on the TPU.
+"""Stage breakdown of one batched RTI iteration (B=512, N=25 by default).
 
-Times, at BENCH_BATCH problems: (a) the full rti step, (b) linearize+Gram
-only, (c) Riccati only, (d) forward+merit line search only, so the next
-kernel target is chosen from data, not guesswork. Not part of the test
-suite; run manually: python scripts/profile_rti.py
+Times, each alone under jit with block_until_ready: the full RTI step, the
+linearize + Gram stage (`TrajOptSolver._gn_blocks`), and the Riccati sweep +
+alpha=1 rollout, both as the Triton kernel and as the XLA scans. Used by
+chip_smoke.py (phase 1); also runnable on its own on a GPU host:
+
+    python scripts/profile_rti.py [batch]
 """
 import os
 import sys
@@ -12,95 +14,102 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-import jax
-import jax.numpy as jnp
-
-from __graft_entry__ import _flagship
 
 
-from _timing import timeit  # noqa: E402  (end-fenced: tunnel-safe)
+def timeit(fn, *args, runs=5, reps=10):
+    """Median wall ms per call over `runs` runs of `reps` calls each; every
+    run ends in block_until_ready."""
+    import jax
+
+    jax.block_until_ready(fn(*args))
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn(*args)
+        jax.block_until_ready(out)
+        times.append((time.perf_counter() - t0) / reps * 1e3)
+    return float(np.median(times))
+
+
+def batch_inputs(solver, X, U, params, batch, seed=0):
+    """(Xb, Ub, pb): `batch` copies of one instance with x0 perturbed by
+    0.01 * N(0, 1) per state (row 0 left unperturbed)."""
+    import dataclasses
+
+    rng = np.random.default_rng(seed)
+    noise = 0.01 * rng.standard_normal((batch, X.shape[-1])).astype(np.float32)
+    noise[0] = 0.0
+    pb = {f.name: np.broadcast_to(np.asarray(getattr(params, f.name))[None],
+                                  (batch,) + np.shape(getattr(params, f.name)))
+          for f in dataclasses.fields(params)}
+    pb["x0"] = pb["x0"] + noise
+    pb = type(params)(**{k: np.ascontiguousarray(v) for k, v in pb.items()})
+    Xb = np.broadcast_to(np.asarray(X)[None], (batch,) + X.shape).copy()
+    Xb[:, 0] = pb.x0
+    Ub = np.ascontiguousarray(
+        np.broadcast_to(np.asarray(U)[None], (batch,) + U.shape))
+    return Xb, Ub, pb
+
+
+def stage_fns(solver):
+    """Jitted batched stage functions: linearize+Gram, the Riccati sweep +
+    rollout through the solver's dispatcher (Triton kernel when batched on
+    a GPU), and the same through the XLA structured scans."""
+    import jax
+    import jax.numpy as jnp
+
+    from iterative_learning_nmpc_tpu.solver.sqp import (
+        _forward_delta_structured,
+        _riccati_solve_structured,
+    )
+
+    h, lm = solver.dt_nodes, solver.opt.lm_reg
+
+    def xla_sweep(Q, R, M, qx, ru, P_N, p_N, d, dx0):
+        K, kff = _riccati_solve_structured(h, Q, R, M, qx, ru, P_N, p_N, d,
+                                           jnp.asarray(lm, Q.dtype))
+        return _forward_delta_structured(h, K, kff, d, dx0,
+                                         jnp.asarray(1.0, Q.dtype))
+
+    return {
+        "linearize": jax.jit(jax.vmap(solver._gn_blocks)),
+        "riccati": jax.jit(jax.vmap(solver._get_riccati_rollout())),
+        "riccati_xla": jax.jit(jax.vmap(xla_sweep)),
+    }
+
+
+def stage_times(solver, Xb, Ub, pb, rti=None):
+    """Wall ms of each stage at the batch given (dict). `rti`: an already
+    jitted batched one-step solve to reuse."""
+    import jax
+
+    fns = stage_fns(solver)
+    blocks = fns["linearize"](Xb, Ub, pb)
+    if rti is None:
+        rti = jax.jit(jax.vmap(lambda x, u, p: solver.solve(x, u, p, 1)))
+    return {
+        "rti_step_ms": timeit(rti, Xb, Ub, pb),
+        "linearize_gram_ms": timeit(fns["linearize"], Xb, Ub, pb),
+        "riccati_rollout_ms": timeit(fns["riccati"], *blocks),
+        "riccati_rollout_xla_ms": timeit(fns["riccati_xla"], *blocks),
+    }
 
 
 def main():
-    batch = int(os.environ.get("BENCH_BATCH", "256"))
+    import jax
+
+    from __graft_entry__ import _flagship
+
+    batch = int(sys.argv[1]) if len(sys.argv) > 1 else 512
     solver, X, U, params = _flagship()
-    warm = jax.jit(lambda X, U, p: solver.solve(X, U, p, 15))
-    sol = warm(X, U, params)
-    jax.block_until_ready(sol.X)
-
-    key = jax.random.PRNGKey(0)
-    noise = 0.01 * jax.random.normal(key, (batch, X.shape[-1]))
-    pb = jax.tree.map(lambda x: jnp.tile(x[None], (batch,) + (1,) * x.ndim), params)
-    pb = pb.__class__(**{**{f: getattr(pb, f) for f in pb.__dataclass_fields__},
-                         "x0": pb.x0 + noise})
-    Xb = jnp.tile(sol.X[None], (batch, 1, 1)).at[:, 0].set(pb.x0)
-    Ub = jnp.tile(sol.U[None], (batch, 1, 1))
-
-    lingram = solver._get_lingram_dynjac()
-    from iterative_learning_nmpc_tpu.ops.riccati_kernel import make_riccati_pallas
-    from iterative_learning_nmpc_tpu.ocp.problem import NX
-    from iterative_learning_nmpc_tpu.solver.sqp import (
-        _forward_delta_structured, _linearize_terminal)
-
-    riccati = make_riccati_pallas(solver.dt_nodes, solver.opt.lm_reg)
-    spec, w, cost = solver.spec, solver.weights, solver.cost
-    h = solver.dt_nodes
-    alphas = jnp.asarray(solver.opt.ls_alphas_steady)
-
-    def lin_stage(X, U, p):
-        return lingram(X, U, p)
-
-    def terminal_stage(X, U, p):
-        rT, JT = _linearize_terminal(spec, w, X[-1], p)
-        P_N = JT.T @ JT + cost.reg_eps_e * jnp.eye(NX, dtype=X.dtype)
-        return P_N, JT.T @ rT
-
-    def defects_stage(X, U, p):
-        return solver._defects(X, U, p), p.x0 - X[0]
-
-    def riccati_stage(Q, R, M, qx, ru, P_N, p_N, defects):
-        return riccati(Q, R, M, qx, ru, P_N, p_N, defects)
-
-    def forward_merit_stage(X, U, p, K, kff, defects, dx0):
-        # mirrors sqp._line_search: one rollout at alpha=1, per-alpha merit
-        dX1, dU1 = _forward_delta_structured(h, K, kff, defects, dx0, 1.0)
-
-        def candidate(alpha):
-            Xc, Uc = X + alpha * dX1, U + alpha * dU1
-            cost_c = solver._total_cost(Xc, Uc, p)
-            return cost_c + 1e2 * (1.0 - alpha) * jnp.sum(jnp.abs(defects))
-
-        merits = jax.vmap(candidate)(alphas)
-        best = jnp.argmin(merits)
-        a = alphas[best]
-        return X + a * dX1, U + a * dU1
-
-    vm = lambda f: jax.jit(jax.vmap(f))
-    full = jax.jit(lambda X, U, p: jax.vmap(
-        lambda x, u, pp: solver.solve(x, u, pp, 1))(X, U, p).X)
-
-    # precompute intermediate stage inputs
-    Q, R, M, qx, ru = vm(lin_stage)(Xb, Ub, pb)
-    P_N, p_N = vm(terminal_stage)(Xb, Ub, pb)
-    defects, dx0 = vm(defects_stage)(Xb, Ub, pb)
-    K, kff = vm(riccati_stage)(Q, R, M, qx, ru, P_N, p_N, defects)
-    jax.block_until_ready(K)
-
-    t_full = timeit(full, Xb, Ub, pb)
-    t_lin = timeit(vm(lin_stage), Xb, Ub, pb)
-    t_term = timeit(vm(terminal_stage), Xb, Ub, pb)
-    t_def = timeit(vm(defects_stage), Xb, Ub, pb)
-    t_ric = timeit(vm(riccati_stage), Q, R, M, qx, ru, P_N, p_N, defects)
-    t_fwd = timeit(vm(forward_merit_stage), Xb, Ub, pb, K, kff, defects, dx0)
-
-    print(f"batch={batch} backend={jax.default_backend()}")
-    print(f"full RTI iter   : {t_full:8.2f} ms   ({batch / t_full * 1e3:8.0f} solves/s)")
-    print(f"  linearize+Gram: {t_lin:8.2f} ms")
-    print(f"  terminal      : {t_term:8.2f} ms")
-    print(f"  defects       : {t_def:8.2f} ms")
-    print(f"  riccati       : {t_ric:8.2f} ms")
-    print(f"  forward+merit : {t_fwd:8.2f} ms")
-    print(f"  sum stages    : {t_lin + t_term + t_def + t_ric + t_fwd:8.2f} ms")
+    sol = jax.jit(lambda X, U, p: solver.solve(X, U, p, 15))(X, U, params)
+    Xb, Ub, pb = batch_inputs(solver, sol.X, sol.U, params, batch)
+    print(f"batch={batch} backend={jax.default_backend()} "
+          f"device={jax.devices()[0].device_kind} "
+          f"riccati_mode={solver._riccati_mode}")
+    for k, v in stage_times(solver, Xb, Ub, pb).items():
+        print(f"  {k:24s} {v:9.3f}")
 
 
 if __name__ == "__main__":

@@ -59,159 +59,6 @@ def test_fast_linearize_matches_jacfwd(setup, include_torque):
     np.testing.assert_allclose(Ju1, Ju0, atol=2e-4 * scale_u)
 
 
-def test_structured_gram_matches_oracle(setup):
-    """lingram_structured (row-group Gram, J never materialized) vs explicit
-    J^T J on the jacfwd-path linearization, with every row group exercised
-    (restrict/patch/lam_eq active in the fixture).
-
-    Both torque variants run in ONE test so the interpret-mode Pallas kernel
-    (a ~3 min one-off XLA-CPU compile, shared with test_dynjac_kernel.py in
-    a full-suite run) compiles once; eager, since jit would unroll the
-    interpreter's grid loop into one giant graph."""
-    from iterative_learning_nmpc_tpu.solver.linearize import lingram_structured
-
-    solver, X, U, params = setup
-    w, spec = solver.weights, solver.spec
-    rng = np.random.RandomState(9)
-    Xb = jnp.stack([X, X + 0.03 * rng.randn(*X.shape).astype(np.float32)])
-    Ub = jnp.stack([U, U + 0.1 * rng.randn(*U.shape).astype(np.float32)])
-    pb = jax.tree.map(lambda x: jnp.stack([x, x]), params)
-
-    for include_torque in (True, False):
-        Q1, R1, M1, qx1, ru1 = lingram_structured(
-            spec, w, Xb, Ub, pb, include_torque=include_torque,
-            interpret=True)
-
-        r0, Jx0, Ju0 = jax.vmap(
-            lambda X_, U_, p_: S._linearize_stages(
-                spec, w, X_, U_, p_, include_torque=include_torque)
-        )(Xb, Ub, pb)
-        Q0 = jnp.einsum("bnri,bnrj->bnij", Jx0, Jx0)
-        R0 = jnp.einsum("bnri,bnrj->bnij", Ju0, Ju0)
-        M0 = jnp.einsum("bnri,bnrj->bnij", Jx0, Ju0)
-        qx0 = jnp.einsum("bnri,bnr->bni", Jx0, r0)
-        ru0 = jnp.einsum("bnri,bnr->bni", Ju0, r0)
-
-        for name, a1, a0 in (("Q", Q1, Q0), ("R", R1, R0), ("M", M1, M0),
-                             ("qx", qx1, qx0), ("ru", ru1, ru0)):
-            scale = max(float(jnp.max(jnp.abs(a0))), 1.0)
-            np.testing.assert_allclose(
-                np.asarray(a1), np.asarray(a0), atol=3e-4 * scale,
-                err_msg=f"{name} include_torque={include_torque}")
-
-
-def _slice_nodes(X, U, params, NN):
-    """Truncate the horizon to NN nodes (interpret-mode kernels execute the
-    grid eagerly, so fewer nodes = proportionally faster oracle tests)."""
-    import dataclasses
-
-    p = dataclasses.replace(
-        params,
-        cnt=params.cnt[:, :NN + 1], peak=params.peak[:, :NN + 1],
-        plane_point=params.plane_point[:, :NN + 1],
-        cnt_loc=params.cnt_loc[:, :NN + 1],
-        patch_radius=params.patch_radius[:, :NN + 1],
-        dt=params.dt[:NN], lam_eq=params.lam_eq[:NN],
-        lam_ineq=params.lam_ineq[:NN],
-    )
-    return X[:NN + 1], U[:NN], p
-
-
-@pytest.mark.slow
-def test_lingram_fused_kernel_matches_structured(setup):
-    """The fully-fused lingram Pallas kernel (Gram accumulated in VMEM,
-    emitted in the Riccati kernel's lane-major layout) vs lingram_structured.
-    interpret mode, eager (jit would unroll the interpreter grid loop)."""
-    from iterative_learning_nmpc_tpu.ops.dynjac_kernel import (
-        lingram_lane_major)
-    from iterative_learning_nmpc_tpu.solver.linearize import lingram_structured
-
-    solver, X, U, params = setup
-    X, U, params = _slice_nodes(X, U, params, 4)
-    w, spec = solver.weights, solver.spec
-    rng = np.random.RandomState(21)
-    Xb = jnp.stack([X, X + 0.03 * rng.randn(*X.shape).astype(np.float32)])
-    Ub = jnp.stack([U, U + 0.1 * rng.randn(*U.shape).astype(np.float32)])
-    pb = jax.tree.map(lambda x: jnp.stack([x, x]), params)
-    B = 2
-
-    for include_torque in (True, False):
-        Qt, Rt, MTt, qxt, rut = lingram_lane_major(
-            spec, w, Xb, Ub, pb, include_torque=include_torque,
-            interpret=True)
-        unp = lambda t: jnp.moveaxis(t, -1, 0)[:B]
-        Q1 = unp(Qt)
-        R1 = unp(Rt)[:, :, :30, :30]
-        M1 = jnp.swapaxes(unp(MTt)[:, :, :30], 2, 3)
-        qx1 = unp(qxt)[..., 0]
-        ru1 = unp(rut)[:, :, :30, 0]
-
-        Q0, R0, M0, qx0, ru0 = lingram_structured(
-            spec, w, Xb, Ub, pb, include_torque=include_torque,
-            interpret=True)
-
-        for name, a1, a0 in (("Q", Q1, Q0), ("R", R1, R0), ("M", M1, M0),
-                             ("qx", qx1, qx0), ("ru", ru1, ru0)):
-            scale = max(float(jnp.max(jnp.abs(a0))), 1.0)
-            np.testing.assert_allclose(
-                np.asarray(a1), np.asarray(a0), atol=3e-4 * scale,
-                err_msg=f"{name} include_torque={include_torque}")
-
-
-@pytest.mark.slow
-def test_fused_lingram_riccati_chain(setup):
-    """lingram kernel -> Riccati kernel chained in lane-major layout vs the
-    XLA structured path on lingram_structured blocks (interpret mode)."""
-    from iterative_learning_nmpc_tpu.ops.dynjac_kernel import (
-        lingram_lane_major)
-    from iterative_learning_nmpc_tpu.ops.riccati_kernel import (
-        riccati_pallas_lane_major)
-    from iterative_learning_nmpc_tpu.solver.linearize import lingram_structured
-    from iterative_learning_nmpc_tpu.ocp.problem import NX
-
-    solver, X, U, params = setup
-    NN = 4
-    X, U, params = _slice_nodes(X, U, params, NN)
-    w, spec = solver.weights, solver.spec
-    rng = np.random.RandomState(33)
-    Xb = jnp.stack([X, X + 0.02 * rng.randn(*X.shape).astype(np.float32)])
-    Ub = jnp.stack([U, U + 0.05 * rng.randn(*U.shape).astype(np.float32)])
-    pb = jax.tree.map(lambda x: jnp.stack([x, x]), params)
-    B = 2
-    h, lm = solver.dt_nodes, float(solver.opt.lm_reg)
-
-    PT = rng.randn(B, 60, NX).astype(np.float32)
-    P_N = jnp.asarray(np.einsum("bri,brj->bij", PT, PT)
-                      + np.eye(NX, dtype=np.float32))
-    p_N = jnp.asarray(rng.randn(B, NX).astype(np.float32))
-    defects = jnp.asarray(
-        0.01 * rng.randn(B, NN, NX).astype(np.float32))
-
-    Qt, Rt, MTt, qxt, rut = lingram_lane_major(
-        spec, w, Xb, Ub, pb, include_torque=True, interpret=True)
-    K1, k1 = riccati_pallas_lane_major(
-        h, lm, Qt, Rt, MTt, qxt, rut, defects, P_N, p_N, interpret=True)
-
-    Q0, R0, M0, qx0, ru0 = lingram_structured(
-        spec, w, Xb, Ub, pb, include_torque=True, interpret=True)
-    K0, k0 = jax.vmap(
-        lambda *a: S._riccati_solve_structured(h, *a, np.float32(lm))
-    )(Q0, R0, M0, qx0, ru0, P_N, p_N, defects)
-
-    # This test pins the LAYOUT contract between the two kernels (lane
-    # ordering, node direction, padding rows); element-wise numerics are
-    # covered tightly by the per-kernel oracle tests above and in
-    # test_riccati_kernel.py. The tolerance here is loose on purpose: the
-    # lingram kernel's fp32 accumulation-order differences (~3e-4 * scale)
-    # are amplified through the Riccati recursion's Cholesky chain to
-    # ~2e-3 * scale on a few ill-conditioned gain entries. A genuine layout
-    # bug produces O(scale) errors on most elements and still fails loudly.
-    sK = max(float(jnp.max(jnp.abs(K0))), 1.0)
-    np.testing.assert_allclose(np.asarray(K1), np.asarray(K0), atol=1e-2 * sK)
-    sk = max(float(jnp.max(jnp.abs(k0))), 1.0)
-    np.testing.assert_allclose(np.asarray(k1), np.asarray(k0), atol=1e-2 * sk)
-
-
 def test_fast_linearize_inside_solver(setup):
     """Solving with the fast path reproduces the AD-path solution.
 

@@ -1,7 +1,7 @@
-"""Fully on-TPU SafeDAgger outer loop (collect -> relabel -> aggregate ->
+"""Fully on-device SafeDAgger outer loop (collect -> relabel -> aggregate ->
 retrain), reference semantics from `DAgger/example/iter_locosafedagger.py`
-with the data step batched on device — plus the MuJoCo-oracle transfer test
-(VERDICT r2 item 1): a policy trained entirely on jax_sim data must drive
+with the data step batched on device — plus the MuJoCo-oracle transfer test:
+a policy trained entirely on jax_sim data must drive
 the real plant under the safety monitor."""
 import os
 

@@ -1,7 +1,6 @@
 """Batched-expert plant collector: correctness smoke on the CPU backend.
 
-The throughput story lives in BENCH_INPLANT.json (TPU); this pins the
-MECHANICS: E envs step MuJoCo under one vmapped replan, rows follow the
+This pins the MECHANICS (throughput is measured on the GPU, not here): E envs step MuJoCo under one vmapped replan, rows follow the
 recorder contract, the combined mode labels is_expert, and a healthy
 expert keeps every env upright over the short budget.
 """

@@ -2,8 +2,8 @@
 
 BASELINE.json north star: "learned-policy warm-starts feed back into the
 solver to cut iterations". Round 5 closed the round-4 phase-mismatch
-diagnosis by decomposing the warm start's value (full numbers in
-BENCH_WARMSTART.json; regenerate with scripts/bench_warmstart.py):
+diagnosis by decomposing the warm start's value (regenerate with
+scripts/bench_warmstart.py):
 
 | init (vs state), CPU fp32 | home        | midgait     | recovery     |
 |---------------------------|-------------|-------------|--------------|
@@ -14,11 +14,9 @@ BENCH_WARMSTART.json; regenerate with scripts/bench_warmstart.py):
 | policy + contact-match    |  9, 1717    | 14,  841    | 15,  5878    |
 | merit_phase_boot (PROD)   |  6, 1717    |  5,  688    |  5,  5682    |
 
-(* = hit the 15-iteration cap; cost = GN cost after the run. TPU numbers
-in BENCH_WARMSTART.json agree on every merit_boot row: 6/5/5 iterations,
-same costs, boot latency 35/32/29 ms vs 26/28/52 ms for the fixed-offset
-cold boot — recovery boots FASTER because 2 fewer GN iterations pay for
-the vmapped probe.)
+(* = hit the 15-iteration cap; cost = GN cost after the run. The
+accelerator run agreed on every merit_boot row: 6/5/5 iterations, same
+costs.)
 
 Measured decomposition (details in solver/warmstart.py docstrings):
 1. The policy rollout (X, U) GUESS never beats the engineered stationary

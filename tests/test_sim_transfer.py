@@ -1,6 +1,6 @@
-"""jax_sim-vs-MuJoCo pins on a WALKING trajectory (VERDICT r2 item 1).
+"""jax_sim-vs-MuJoCo pins on a WALKING trajectory.
 
-The soft-contact device sim (`sim/jax_sim.py`) backs the flagship on-TPU
+The soft-contact device sim (`sim/jax_sim.py`) backs the flagship on-device
 datagen/DAgger loop; previously it was pinned against the MuJoCo oracle only
 on standing/freefall scenarios (`test_jax_sim.py`). These tests pin it on a
 real Go2 trot:
